@@ -1,7 +1,10 @@
-"""Benchmark: BASELINE.md measurement configs 1 and 2.
+"""Benchmark: BASELINE.md measurement configs 1, 2 and 3 on one GPU.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", plus
-an "extra" dict carrying the additional measured configs}.
+Prints the device (platform, device kind, count, and the card's name and
+power limit from nvidia-smi) on stderr, then ONE JSON line on stdout:
+{"metric", "value", "unit", "vs_baseline", plus an "extra" dict carrying
+the additional measured configs}.  It refuses to run off the GPU, and a
+failing config fails the run.
 
 vs_baseline reference: the repository's reference encoder publishes no
 absolute fps (BASELINE.md); the north-star is "encode fps/chip > x265 on
@@ -11,6 +14,7 @@ ballpark) until a measured x265 build lands in-tree.
 """
 
 import json
+import subprocess
 import sys
 import time
 
@@ -102,14 +106,14 @@ def bench_lowdelay_p_720p():
 
 def bench_1080p_config3():
     """Config 3: 1080p random-access B-pyramid CRF + AQ/CU-tree + SAO
-    (BASELINE.md measurement config 3; first round measured: round 5)."""
+    (BASELINE.md measurement config 3)."""
     from x265amod_tpu.models.encoder import Encoder
     from x265amod_tpu.utils.params import Param
 
     # warm must cover the first I/P/B dispatches: the lookahead buffers
     # ~depth frames before anything dispatches, so the timer starts
-    # only after the pipelines have compiled (round-5: warm=6 put the
-    # 1080p B compile inside the measured window)
+    # only after the pipelines have compiled (warm=6 put the 1080p B
+    # compile inside the measured window)
     w, h, nf, warm = 1920, 1080, 26, 16
     p = Param(width=w, height=h, crf=28.0, keyint=60, bframes=3,
               ctu_size=32, aq_mode=2, cutree=True, sao=True,
@@ -135,19 +139,29 @@ def bench_1080p_config3():
     return fps
 
 
+def device_line() -> str:
+    """Platform, device kind and count as JAX reports them, and the
+    card's name and power limit; SystemExit off the GPU."""
+    import jax
+    devs = jax.devices()
+    if devs[0].platform != "gpu":
+        raise SystemExit(f"bench: JAX found no GPU (platform "
+                         f"{devs[0].platform!r}); refusing to run")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+    return (f"platform={devs[0].platform} kind={devs[0].device_kind} "
+            f"count={len(devs)} card={card}")
+
+
 def main():
+    sys.stderr.write(f"bench: {device_line()}\n")
     fps1 = bench_allintra_360p()
-    extra = {}
-    try:
-        extra["enc_fps_720p_lowdelay_p"] = round(
-            bench_lowdelay_p_720p(), 3)
-    except Exception as e:  # noqa: BLE001 — config 1 is the gate
-        sys.stderr.write(f"bench config-2 failed: {e}\n")
-    try:
-        extra["enc_fps_1080p_bpyramid_crf"] = round(
-            bench_1080p_config3(), 3)
-    except Exception as e:  # noqa: BLE001
-        sys.stderr.write(f"bench config-3 failed: {e}\n")
+    extra = {
+        "enc_fps_720p_lowdelay_p": round(bench_lowdelay_p_720p(), 3),
+        "enc_fps_1080p_bpyramid_crf": round(bench_1080p_config3(), 3),
+    }
     print(json.dumps({
         "metric": "enc_fps_360p_allintra",
         "value": round(fps1, 3),

@@ -1,6 +1,6 @@
 """Sharded == unsharded determinism (SURVEY.md §2.2 comm-backend row;
 reference invariant: bitstream independent of thread count,
-doc/reST/threading.rst:176-191 — the TPU build holds the stronger
+doc/reST/threading.rst:176-191 — this build holds the stronger
 property at any sharding)."""
 
 import jax

@@ -1,24 +1,29 @@
-"""x265amod_tpu: TPU-native HEVC encoder (JAX/XLA/Pallas + C++ host).
+"""x265amod_tpu: an HEVC encoder in JAX (device analysis, transforms and
+loop filters) with a C++ host CABAC.
 
-Brand-new implementation with the capabilities of the reference
-DJATOM/x265-aMod encoder (see SURVEY.md), designed TPU-first.
+A new implementation with the capabilities of the reference
+DJATOM/x265-aMod encoder (see SURVEY.md).
 """
 
 import os
 
 import jax
 
-# Optional persistent compilation cache (opt-in: set X265AMOD_TPU_CACHE
-# to a directory).  Encoder programs are large and recompiling per
-# process costs minutes; however some remote-TPU backends have been
-# observed to stall when loading cached executables, so default is off.
-_cache_dir = os.environ.get("X265AMOD_TPU_CACHE")
-if _cache_dir:
-    try:
-        jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # noqa: BLE001 - cache is best-effort
-        pass
+_CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def compile_cache_dir(environ=os.environ) -> str | None:
+    """Directory this package points JAX's persistent compile cache at:
+    none when JAX_COMPILATION_CACHE_DIR is set (JAX reads it itself),
+    else ``<checkout>/.jax_cache``.  Encoder programs are large, and the
+    cache saves recompiling them in every process."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return os.path.join(_CHECKOUT, ".jax_cache")
+
+
+_cache_dir = compile_cache_dir()
+if _cache_dir is not None and jax.config.jax_compilation_cache_dir is None:
+    jax.config.update("jax_compilation_cache_dir", _cache_dir)
 
 __version__ = "0.1.0"

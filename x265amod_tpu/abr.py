@@ -3,7 +3,7 @@ AbrEncoder / PassEncoder / Scaler / Reader and the `--abr-ladder`
 config parsing in `x265.cpp:93-248`).
 
 One Reader decodes the input once; each ladder rung gets a Scaler
-(ops/scaler.py: resampling as MXU matmuls) and its own Encoder.  Where
+(ops/scaler.py: resampling as two matmuls) and its own Encoder.  Where
 the reference runs PassEncoder/Scaler/Reader as OS threads around one
 shared ring buffer, here each input frame is scaled and pushed to
 every rung in turn — each rung's device work is dispatched

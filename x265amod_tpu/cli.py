@@ -37,7 +37,7 @@ def _fmt_time(sec: float) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="x265amod-tpu",
-                                 description="TPU-native HEVC encoder")
+                                 description="HEVC encoder in JAX")
     ap.add_argument("input", help="y4m or raw yuv input, '-' for stdin")
     ap.add_argument("-o", "--output", required=True)
     ap.add_argument("--preset", default="medium")

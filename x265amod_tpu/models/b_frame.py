@@ -1,10 +1,10 @@
-"""B-frame encoder: two reference lists, bi-prediction (TPU-shaped).
+"""B-frame encoder: two reference lists, bi-prediction (batched).
 
 Extends the estimate-then-commit P pipeline (inter_frame.py) to B slices
 (role of reference `encoder/analysis.cpp` checkBidir2Nx2N:3145 and the
 L0/L1/BI mode trials of compressInterCU_rd0_4):
 
-  1. parallel ME against BOTH references (dense SSD grids, MXU)
+  1. parallel ME against BOTH references (dense SSD grids)
   2. parallel trials: L0-uni, L1-uni, BI (14-bit intermediate combine,
      spec 8.5.3.3.4.3) -> coded distortion + rate proxies
   3. parallel intra trial (source-pixel references)

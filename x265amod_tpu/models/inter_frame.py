@@ -1,12 +1,12 @@
-"""Low-delay P frame encoder (TPU-shaped estimate-then-commit).
+"""Low-delay P frame encoder (batched estimate-then-commit).
 
 Replaces the reference's per-CU sequential inter analysis
 (`encoder/analysis.cpp:1146` compressInterCU_rd0_4 + `encoder/search.cpp`
-predInterSearch) with a TPU pipeline, mirroring the reference's own
+predInterSearch) with a batched device pipeline, mirroring the reference's own
 estimate-then-commit philosophy (sa8d-based rd0-4 decisions, full recon
 at commit):
 
-  1. parallel ME: dense SSD grids for ALL CTUs via grouped convs (MXU)
+  1. parallel ME: dense SSD grids for ALL CTUs at once
   2. parallel inter trial: MC at the ME MV -> transform/quant/recon ->
      true coded distortion + rate proxy
   3. parallel intra trial: 35-mode analysis using SOURCE-pixel neighbor
@@ -36,7 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops.intra import predict_all_modes_batch, substitute_refs
-from ..ops.me import (mc_chroma_qpel, mc_luma_int, mc_luma_qpel,
+from ..ops.me import (mc_chroma_qpel, mc_luma_qpel,
                       me_ssd_grid, subpel_refine)
 from ..ops.quant import chroma_qp, dequant, derive_qp_maps, quant
 from ..ops.transforms import fwd_transform, inv_transform

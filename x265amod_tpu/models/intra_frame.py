@@ -1,6 +1,6 @@
 """All-intra frame encoder: wavefront-batched CTU processing on device.
 
-TPU-first replacement for the reference's WPP worker-thread row loop
+Replacement for the reference's WPP worker-thread row loop
 (`encoder/frameencoder.cpp:1399-1970` + `common/wavefront.cpp`): instead
 of threads racing over CTU rows, CTUs on each anti-diagonal d = cx+2*cy
 are processed as ONE batch (the x+2y skew gives every CTU its left,
@@ -11,8 +11,8 @@ dependency shape WPP enforces with its 2-CTU lead,
 Memory layout: reconstruction state lives in per-CTU *block* layout
 [Hc, Wc, 16, 16] rather than a flat plane — neighbor reference samples
 are then whole-block gathers (XLA gather with contiguous 16x16 slices)
-and recon writes are whole-block scatters, avoiding TPU element-wise
-scatter (which serializes).  The flat plane is materialized once at the
+and recon writes are whole-block scatters rather than element-wise
+scatters.  The flat plane is materialized once at the
 end by a reshape/transpose.
 
 Per diagonal, on device: gather reference samples -> predict all 35
@@ -316,7 +316,7 @@ class IntraFrameEncoder:
                      qp_offsets: np.ndarray | None = None):
         """Dispatch the device step; returns device arrays immediately
         (JAX async dispatch) so frame-level pipelining can overlap the
-        next frame's compute with this frame's D2H transfers — the TPU
+        next frame's compute with this frame's D2H transfers — the device
         analog of the reference's frame-thread pipeline.
 
         qp_offsets: optional per-CTU AQ/CU-tree offsets [hc, wc]."""

@@ -1,6 +1,6 @@
 """Lookahead pre-analysis (role of reference `encoder/slicetype.cpp`).
 
-Batched TPU re-design of the reference's lowres pre-analysis pipeline:
+Batched re-design of the reference's lowres pre-analysis pipeline:
 
   - lowres pyramid init (`frameInitLowres`, common/lowres.cpp:337)
   - adaptive quantization (`calcAdaptiveQuantFrame`, slicetype.cpp:452):
@@ -17,7 +17,7 @@ Batched TPU re-design of the reference's lowres pre-analysis pipeline:
 
 Where the reference runs these as bonded thread-pool jobs over one
 frame, here every stage is one batched device computation over all
-blocks (vmap/conv on the MXU), and the host keeps only the scalar
+blocks, and the host keeps only the scalar
 decision loop (scene cuts, queue management).
 """
 
@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..ops.intra import predict_all_modes_batch, substitute_refs
+from ..ops.me import ssd_grid
 
 LOWRES_ME_RANGE = 8
 
@@ -56,7 +57,10 @@ _H8 = np.asarray(_hadamard(8), np.int32)
 def satd8(a: jax.Array, b: jax.Array) -> jax.Array:
     """Batched 8x8 SATD (Hadamard |.| sum >> 2), [..., 8, 8] ints."""
     d = (a - b).astype(jnp.int32)
-    t = jnp.einsum("ij,...jk,kl->...il", _H8, d, _H8)
+    # int32 einsum: exact at any precision (|t| <= 64 * 1023 < 2^31);
+    # HIGHEST is stated so no backend picks a reduced-width path
+    t = jnp.einsum("ij,...jk,kl->...il", _H8, d, _H8,
+                   precision=jax.lax.Precision.HIGHEST)
     return (jnp.sum(jnp.abs(t), axis=(-2, -1)) + 2) >> 2
 
 
@@ -92,32 +96,17 @@ def lowres_inter_cost(cur_lr: jax.Array, ref_lr: jax.Array,
     """Dense 8x8 SAD ME over the lowres plane (all blocks at once).
 
     Returns (cost [hb, wb], mv [hb, wb, 2]) with full-search argmin —
-    the TPU replacement for the reference's per-block HEX search."""
+    the batched replacement for the reference's per-block HEX
+    search."""
     h, w = cur_lr.shape
     hb, wb = h // 8, w // 8
     n = hb * wb
     s = 2 * rng + 1
-    refp = jnp.pad(ref_lr, rng, mode="edge").astype(jnp.float32)
-    cur = cur_lr.astype(jnp.float32).reshape(hb, 8, wb, 8) \
-        .transpose(0, 2, 1, 3).reshape(n, 8, 8)
-    wsz = 8 + 2 * rng
-    patches = jax.lax.conv_general_dilated_patches(
-        refp.reshape(1, 1, h + 2 * rng, w + 2 * rng),
-        filter_shape=(wsz, wsz), window_strides=(8, 8), padding="VALID")
-    windows = patches[0].reshape(wsz * wsz, n).T.reshape(n, 1, wsz, wsz)
-    # SSD via conv (SAD needs abs; SSD grid is MXU-friendly and ranks
-    # candidates nearly identically for lookahead purposes)
-    corr = jax.lax.conv_general_dilated(
-        windows.reshape(1, n, wsz, wsz), cur.reshape(n, 1, 8, 8),
-        window_strides=(1, 1), padding="VALID", feature_group_count=n,
-        preferred_element_type=jnp.float32)[0]
-    ones = jnp.ones((n, 1, 8, 8), jnp.float32)
-    w2 = jax.lax.conv_general_dilated(
-        (windows * windows).reshape(1, n, wsz, wsz), ones,
-        window_strides=(1, 1), padding="VALID", feature_group_count=n,
-        preferred_element_type=jnp.float32)[0]
-    c2 = jnp.sum(cur * cur, axis=(1, 2))[:, None, None]
-    ssd = w2 - 2.0 * corr + c2                   # [n, S, S]
+    cur = cur_lr[:hb * 8, :wb * 8].reshape(hb, 8, wb, 8) \
+        .transpose(0, 2, 1, 3)
+    # SSD grid (SAD needs abs; the SSD grid ranks candidates nearly
+    # identically for lookahead purposes)
+    ssd = ssd_grid(cur, ref_lr, rng).astype(jnp.float32)   # [n, S, S]
     flat = jnp.argmin(ssd.reshape(n, -1), axis=1)
     cost = jnp.min(ssd.reshape(n, -1), axis=1)
     mv = jnp.stack([flat % s - rng, flat // s - rng], 1)

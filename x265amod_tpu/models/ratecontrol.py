@@ -20,11 +20,11 @@ Semantics follow the reference's conventions:
     feedback around the plan
 
 The row-level VBV re-encode trigger of the reference
-(`rowVbvRateControl:2779`) is intentionally frame-level here: the TPU
+(`rowVbvRateControl:2779`) is intentionally frame-level here: the device
 pipeline encodes whole frames as batched device steps, so mid-frame
 QP surgery would force a host round-trip per row; the frame-level
 clip plus the lookahead's per-CTU offsets covers the same contract
-(bounded buffer excursion) in a TPU-shaped way.
+(bounded buffer excursion) at frame granularity.
 
 Deterministic (host-side scalar chain), matching the reference's
 documented determinism contract for non-VBV modes
@@ -242,7 +242,7 @@ class RateControl:
             # whole-frame QP is integer; error-diffuse the fractional
             # part so the MEAN rate converges (the reference avoids
             # the dead zone with fractional per-row qscale; frame-level
-            # dithering is the TPU-shaped equivalent)
+            # dithering is the frame-level equivalent)
             qpi = min(max(int(round(qpf + self._qp_carry)), 0), 51)
             self._qp_carry = max(-1.0, min(
                 1.0, self._qp_carry + qpf - qpi))

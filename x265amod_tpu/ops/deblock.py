@@ -2,7 +2,7 @@
 
 Role of reference `common/deblock.cpp` (boundary-strength derivation +
 edge filters) and `common/loopfilter.cpp` kernels, re-derived from the
-spec.  TPU shape: instead of the reference's per-CTU-row filter wave
+spec.  Batched: instead of the reference's per-CTU-row filter wave
 (`encoder/framefilter.cpp`), ALL vertical edges of the frame are
 filtered as one batched op, then all horizontal edges (the spec's
 normative two-pass order) — no wavefront needed because deblocking has

@@ -4,7 +4,7 @@ Role of the reference's estBit tables (`encoder/entropy.cpp:2220-2390`
 estBit / estSignificantMapBit): every mode/split decision needs the
 CABAC cost of a candidate's coefficients WITHOUT running the serial
 arithmetic coder.  The reference walks per-coefficient with the live
-context states; the TPU recast prices whole level tensors in one
+context states; the batched recast prices whole level tensors in one
 batched pass using fractional-bit costs (cabac/tables.py ENTROPY_BITS,
 the -log2(p) of the spec 9.3.4.3 probability model) evaluated at the
 slice-type context INIT states (9.3.2.2).  Using init states instead

@@ -1,12 +1,13 @@
-"""Batched 35-mode intra prediction (JAX, TPU-shaped).
+"""Batched 35-mode intra prediction (JAX).
 
-TPU-first re-design of `common/intrapred.cpp` (+ the batched
+Re-design of `common/intrapred.cpp` (+ the batched
 `all_angs_pred_c` idea the reference already uses for intra RD,
 `intrapred.cpp:207`): instead of per-block scalar loops, predict ALL 35
 modes for a whole wavefront batch of blocks at once.  All angular
 geometry (projection indices, interpolation weights, negative-reference
-extension) is precomputed as *static* index tables, so the kernel is
-pure gathers + VPU arithmetic with no data-dependent control flow.
+extension) is precomputed as *static* tables, so prediction is
+static-index gathers + elementwise integer arithmetic with no
+data-dependent control flow.
 
 Matches ops/intra_ref.py (the scalar spec oracle) bit-exactly — enforced
 by tests/test_intra.py.
@@ -24,43 +25,6 @@ from .intra_ref import ANGLES, INV_ANGLES, filter_flag
 
 V_MODES = list(range(18, 35))   # vertical-ish: main ref = top
 H_MODES = list(range(2, 18))    # horizontal-ish: main ref = left
-
-
-@functools.lru_cache(maxsize=None)
-def _angular_weight_tables(n: int):
-    """Static one-hot weight tensors turning angular prediction into
-    matmuls (MXU work) instead of gathers (serialized on TPU).
-
-    For each mode group, returns (E, W):
-      E [M, n, 2n+1] f32: builds the negative extension of the main
-        reference from [corner, side(2n)] — ext = einsum('bl,mkl->bmk').
-      W [M, n*n, L] f32 with L = 3n+2: two-tap interpolation weights
-        over the assembled mref — pred*32-16 = einsum('bml,mql->bmq').
-    Each W row has at most two nonzeros summing to 32, so f32 matmul is
-    exact (values < 2^13).
-    """
-    length = 3 * n + 2
-
-    def build(ext, gidx, fact):
-        m = ext.shape[0]
-        e = np.zeros((m, n, 2 * n + 1), np.float32)
-        for mi in range(m):
-            for k in range(n):
-                # positions beyond the per-mode projection bound are never
-                # read by the interpolation; clamp them to a valid slot
-                src = min(int(ext[mi, k]), 2 * n - 1)
-                e[mi, k, 0 if src < 0 else src + 1] = 1.0
-        w = np.zeros((m, n * n, length), np.float32)
-        for mi in range(m):
-            for y in range(n):
-                f = int(fact[mi, y])
-                for x in range(n):
-                    g = int(gidx[mi, y, x])
-                    w[mi, y * n + x, g] += 32 - f
-                    w[mi, y * n + x, g + 1] += f
-        return e, w
-
-    return build(*_angular_tables(n)[0]), build(*_angular_tables(n)[1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,35 +62,42 @@ def _angular_tables(n: int):
     return group(V_MODES), group(H_MODES)
 
 
-def _build_mref(main, side, corner, e_tab, n):
-    """mref[B, M, 3n+2] for one mode group (gather-free).
+@functools.lru_cache(maxsize=None)
+def _mode_tables(n: int):
+    """Per-mode gather tables for modes 0..34 (0/1 are dummies copied
+    from mode 2; planar/DC overwrite them), over the main-ref array
+    mref = [ext(n), corner, main(2n), main[2n-1]] of length 3n+2:
 
-    main/side: [B, 2n]; corner: [B]; e_tab: [M, n, 2n+1] static one-hot.
+      ext [35, n]    index into [corner, side(2n)] of each negative
+                     main-ref position -n..-1 (angles < 0);
+      gidx [35, n*n] mref index of tap 0 for output (y, x) in raster
+                     order, the horizontal modes' transpose folded in;
+      fact [35, n*n] interpolation weight (0..31) of tap 1.
     """
-    bsz = main.shape[0]
-    m = e_tab.shape[0]
-    src = jnp.concatenate([corner[:, None], side],
-                          axis=1).astype(jnp.float32)       # [B, 2n+1]
-    ext = jnp.einsum("bl,mkl->bmk", src, e_tab,
-                     preferred_element_type=jnp.float32)    # [B, M, n]
-    line = jnp.concatenate(
-        [corner[:, None], main, main[:, -1:]], axis=1)      # [B, 2n+2]
-    line = jnp.broadcast_to(line[:, None, :].astype(jnp.float32),
-                            (bsz, m, 2 * n + 2))
-    return jnp.concatenate([ext, line], axis=2)             # [B, M, 3n+2]
+    ext_all = np.zeros((35, n), np.int32)
+    g_all = np.zeros((35, n * n), np.int32)
+    f_all = np.zeros((35, n * n), np.int32)
+    (v_ext, v_g, v_f), (h_ext, h_g, h_f) = _angular_tables(n)
+    for mode in range(2, 35):
+        if mode >= 18:
+            ext, g, f = (t[V_MODES.index(mode)] for t in (v_ext, v_g, v_f))
+            ff = np.repeat(f[:, None], n, axis=1)
+        else:
+            ext, g, f = (t[H_MODES.index(mode)] for t in (h_ext, h_g, h_f))
+            g, ff = g.T, np.repeat(f[None, :], n, axis=0)
+        # positions beyond the per-mode projection bound are never read
+        # by the interpolation; clamp them to a valid slot
+        ext_all[mode] = np.where(ext < 0, 0, np.minimum(ext, 2 * n - 1) + 1)
+        g_all[mode] = g.reshape(-1)
+        f_all[mode] = ff.reshape(-1)
+    for table in (ext_all, g_all, f_all):
+        table[:2] = table[2]
+    return ext_all, g_all, f_all
 
 
-def _angular_group(mref, w_tab, n):
-    """pred[B, M, n, n] via one-hot interpolation matmul (MXU path).
-
-    mref: [B, M, L] f32 (integer-valued), w_tab: [M, n*n, L] static.
-    Exact: each output = (32-f)*a + f*b with a,b < 256 -> < 2^13.
-    """
-    bsz, m, _ = mref.shape
-    acc = jnp.einsum("bml,mql->bmq", mref, w_tab,
-                     preferred_element_type=jnp.float32)
-    pred = jnp.floor((acc + 16.0) * (1.0 / 32.0))
-    return pred.astype(jnp.int32).reshape(bsz, m, n, n)
+def _interp(a0, a1, fact):
+    """Two-tap angular interpolation (spec 8.4.4.2.6)."""
+    return ((32 - fact) * a0 + fact * a1 + 16) >> 5
 
 
 @functools.partial(jax.jit, static_argnames=("n", "c_idx", "bit_depth"))
@@ -150,22 +121,25 @@ def predict_all_modes_batch(top: jax.Array, left: jax.Array,
     corner_f = sm[:, 2 * n]
     top_f = sm[:, 2 * n + 1:]
 
-    (v_e, v_w), (h_e, h_w) = _angular_weight_tables(n)
     use_filt = np.array([filter_flag(m, n, c_idx) for m in range(35)])
 
-    # vertical group (modes 18..34): main=top side=left
-    mref_v = jnp.where(
-        use_filt[V_MODES][None, :, None],
-        _build_mref(top_f, left_f, corner_f, jnp.asarray(v_e), n),
-        _build_mref(top, left, corner, jnp.asarray(v_e), n))
-    pred_v = _angular_group(mref_v, jnp.asarray(v_w), n)
-    # horizontal group (modes 2..17): main=left side=top, then transpose
-    mref_h = jnp.where(
-        use_filt[H_MODES][None, :, None],
-        _build_mref(left_f, top_f, corner_f, jnp.asarray(h_e), n),
-        _build_mref(left, top, corner, jnp.asarray(h_e), n))
-    pred_h = _angular_group(mref_h, jnp.asarray(h_w), n)
-    pred_h = jnp.swapaxes(pred_h, 2, 3)
+    # angular modes 2..34: per-mode main/side refs (filtered or not;
+    # main = top for the vertical group) picked from four variants by
+    # static indices, then the static-table gathers of _mode_tables
+    ext_t, g_t, f_t = (t[2:] for t in _mode_tables(n))
+    variants = [(top_f, left_f, corner_f), (top, left, corner),
+                (left_f, top_f, corner_f), (left, top, corner)]
+    src = jnp.stack([jnp.concatenate([c[:, None], sd], 1)
+                     for _, sd, c in variants], 1)          # [B, 4, 2n+1]
+    line = jnp.stack([jnp.concatenate([c[:, None], mn, mn[:, -1:]], 1)
+                      for mn, _, c in variants], 1)         # [B, 4, 2n+2]
+    ang = np.arange(2, 35)
+    vsel = 2 * (ang < 18) + ~use_filt[2:]
+    rows = np.arange(33)[:, None]
+    mref = jnp.concatenate([src[:, vsel][:, rows, ext_t],
+                            line[:, vsel]], 2)              # [B, 33, 3n+2]
+    pred_ang = _interp(mref[:, rows, g_t], mref[:, rows, g_t + 1],
+                       f_t).reshape(bsz, 33, n, n)
 
     # planar (mode 0) — always on filtered refs when filter_flag(0)
     pt, pl, pc = (top_f, left_f, corner_f) if use_filt[0] else \
@@ -190,7 +164,7 @@ def predict_all_modes_batch(top: jax.Array, left: jax.Array,
         dcp = dcp.at[:, 0, 0].set(corner_px)
 
     preds = jnp.concatenate(
-        [planar[:, None], dcp[:, None], pred_h, pred_v], axis=1)
+        [planar[:, None], dcp[:, None], pred_ang], axis=1)
 
     if c_idx == 0 and n < 32:
         # mode 26 (pure vertical): filter first column with UNfiltered refs
@@ -202,48 +176,6 @@ def predict_all_modes_batch(top: jax.Array, left: jax.Array,
                        + ((top[:, :n] - corner[:, None]) >> 1), 0, maxv)
         preds = preds.at[:, 10, 0, :].set(row)
     return preds.astype(jnp.int32)
-
-
-@functools.lru_cache(maxsize=None)
-def _single_mode_tables(n: int):
-    """Combined per-mode one-hot tables for SINGLE-mode angular
-    prediction (modes 0..34; 0/1 are dummies overridden by planar/DC).
-
-    E [35, n, 2n+1] f32: negative-extension builder over
-        [corner, side] — ext[b] = E[mode_b] @ src_b.
-    W [35*(3n+2), n*n] f32: two-tap interpolation weights over the
-        assembled mref, H-group transpose folded in, laid out so the
-        per-block mode selection becomes ONE matmul:
-        pred*32-16 = (onehot(mode_b) (x) mref_b) @ W.
-    Gathers (take_along_axis) cost ~0.4 ms per scan step on TPU (HLO
-    profile, round 4); streaming these static tables through the MXU
-    once per step is far cheaper.
-    """
-    length = 3 * n + 2
-    (v_tabs, h_tabs) = _angular_tables(n)
-    e_all = np.zeros((35, n, 2 * n + 1), np.float32)
-    w_all = np.zeros((35, length, n * n), np.float32)
-    for mode in range(2, 35):
-        if mode >= 18:
-            ext, gx, fc = (t[V_MODES.index(mode)] for t in v_tabs)
-            tr = False
-        else:
-            ext, gx, fc = (t[H_MODES.index(mode)] for t in h_tabs)
-            tr = True
-        for k in range(n):
-            src = min(int(ext[k]), 2 * n - 1)
-            e_all[mode, k, 0 if src < 0 else src + 1] = 1.0
-        for k in range(n):
-            f = int(fc[k])
-            for j in range(n):
-                g = int(gx[k, j])
-                q = (j * n + k) if tr else (k * n + j)
-                w_all[mode, g, q] += 32 - f
-                w_all[mode, g + 1, q] += f
-    for m in (0, 1):
-        e_all[m] = e_all[2]
-        w_all[m] = w_all[2]
-    return e_all, w_all.reshape(35 * length, n * n)
 
 
 @functools.partial(jax.jit, static_argnames=("n", "c_idx", "bit_depth"))
@@ -278,26 +210,18 @@ def predict_modes_batch(top: jax.Array, left: jax.Array,
     topx = jnp.where(uf, top_f, top)
     leftx = jnp.where(uf, left_f, left)
     corx = jnp.where(uf[:, 0], corner_f, corner)
-    main = jnp.where(is_v, topx, leftx).astype(jnp.float32)
-    side = jnp.where(is_v, leftx, topx).astype(jnp.float32)
+    main = jnp.where(is_v, topx, leftx)
+    side = jnp.where(is_v, leftx, topx)
 
-    e_all, w_flat = _single_mode_tables(n)
-    oh = jax.nn.one_hot(modes, 35, dtype=jnp.float32)    # [B, 35]
-    # ext via one-hot-selected E rows (two small einsums)
-    src = jnp.concatenate(
-        [corx[:, None].astype(jnp.float32), side], 1)    # [B, 2n+1]
-    ext_m = jnp.einsum("bl,mkl->bmk", src, jnp.asarray(e_all),
-                       preferred_element_type=jnp.float32)
-    ext = jnp.einsum("bm,bmk->bk", oh, ext_m,
-                     preferred_element_type=jnp.float32)  # [B, n]
-    line = jnp.concatenate(
-        [corx[:, None].astype(jnp.float32), main, main[:, -1:]], 1)
-    mref = jnp.concatenate([ext, line], 1)               # [B, L]
-    # mode selection folded into ONE matmul: rank-1 expand then W
-    x = (oh[:, :, None] * mref[:, None, :]).reshape(bsz, -1)  # [B,35L]
-    acc = x @ jnp.asarray(w_flat)                        # [B, n*n]
-    pred_ang = jnp.floor((acc + 16.0) * (1.0 / 32.0)) \
-        .astype(jnp.int32).reshape(bsz, n, n)
+    # angular: the block's row of each _mode_tables table, gathered
+    ext_t, g_t, f_t = (jnp.asarray(t)[modes] for t in _mode_tables(n))
+    src = jnp.concatenate([corx[:, None], side], 1)      # [B, 2n+1]
+    mref = jnp.concatenate(
+        [jnp.take_along_axis(src, ext_t, 1), corx[:, None], main,
+         main[:, -1:]], 1)                               # [B, 3n+2]
+    pred_ang = _interp(jnp.take_along_axis(mref, g_t, 1),
+                       jnp.take_along_axis(mref, g_t + 1, 1),
+                       f_t).reshape(bsz, n, n)
 
     # planar (mode 0)
     pt, pl_, pc = (top_f, left_f, corner_f) if use_filt[0] else \

@@ -1,10 +1,10 @@
-"""Rate-distortion optimized quantization, level 1 (TPU-shaped).
+"""Rate-distortion optimized quantization, level 1 (batched).
 
 Role of the reference's rdoQuant trellis (`common/quant.cpp:610`): for
 every coefficient choose between the rounded level and level-1 (or 0)
 by D + lambda*R, then decide per 4x4 coefficient group whether zeroing
 the whole group is cheaper.  The reference walks coefficients serially
-with live CABAC contexts; the TPU recast prices every coefficient in
+with live CABAC contexts; the batched recast prices every coefficient in
 parallel with the estBit init-state costs (ops/estbits.bit_consts) and
 does both passes as batched elementwise ops — no scan, conformant by
 construction (only the levels change).

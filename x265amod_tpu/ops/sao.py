@@ -1,7 +1,7 @@
 """SAO — sample adaptive offset (role of reference `encoder/sao.cpp` +
 the saoCuOrg*/saoCuStats* kernels of `common/loopfilter.cpp`).
 
-TPU-first re-design: the reference gathers per-CTU stats and runs RDO
+Batched re-design: the reference gathers per-CTU stats and runs RDO
 CTU-by-CTU inside the filter wave (`sao.cpp:rdoSaoUnitCu:1225`); here
 the WHOLE frame is analysed in one batched device computation:
 

@@ -2,11 +2,11 @@
 `common/scaler.cpp` ScalerFilterManager, used by the multi-encode app
 `abrEncApp.cpp` Scaler threads).
 
-TPU-first design: separable polyphase resampling is expressed as TWO
-MATRIX MULTIPLICATIONS — dst = V @ src @ H^T with V [dstH, srcH] and
+Separable polyphase resampling is expressed as TWO MATRIX
+MULTIPLICATIONS — dst = V @ src @ H^T with V [dstH, srcH] and
 H [dstW, srcW] sparse interpolation operators built host-side once per
-(src, dst) pair.  On TPU both land on the MXU; the reference's
-per-pixel SIMD filter loops have no equivalent cost here.
+(src, dst) pair, in place of the reference's per-pixel SIMD filter
+loops.
 
 Filters: the SHVC/x265 8-tap luma and 4-tap chroma down/up-sampling
 filter banks are approximated with the classic Catmull-Rom bicubic
@@ -20,11 +20,8 @@ import functools
 
 import numpy as np
 
-try:
-    import jax.numpy as jnp
-    _HAVE_JAX = True
-except Exception:   # pragma: no cover
-    _HAVE_JAX = False
+import jax
+import jax.numpy as jnp
 
 
 def _cubic_weight(x: np.ndarray, a: float = -0.5) -> np.ndarray:
@@ -71,19 +68,26 @@ def _resample_matrix(src: int, dst: int, method: str = "bicubic"
     return mat
 
 
+def resample_device(v, plane, hm):
+    """V @ plane @ H^T rounded to uint8, on the default JAX device.
+    HIGHEST: the fractional weights would lose bits at TF32 width, and
+    rung pixels would then differ from the numpy path's."""
+    hi = jax.lax.Precision.HIGHEST
+    out = jnp.matmul(jnp.matmul(v, plane, precision=hi),
+                     jnp.asarray(hm).T, precision=hi)
+    return jnp.clip(jnp.rint(out), 0, 255).astype(jnp.uint8)
+
+
 def resample_plane(plane: np.ndarray, dst_w: int, dst_h: int,
                    method: str = "bicubic", device: bool = True
                    ) -> np.ndarray:
     """Resample one plane to (dst_h, dst_w).  With device=True the two
-    matmuls run under JAX (MXU on TPU); otherwise numpy."""
+    matmuls run under JAX on the default device; otherwise numpy."""
     src_h, src_w = plane.shape
     v = _resample_matrix(src_h, dst_h, method)
     hm = _resample_matrix(src_w, dst_w, method)
-    if device and _HAVE_JAX:
-        out = jnp.asarray(v) @ plane.astype(np.float32) @ \
-            jnp.asarray(hm).T
-        out = jnp.clip(jnp.rint(out), 0, 255).astype(jnp.uint8)
-        return np.asarray(out)
+    if device:
+        return np.asarray(resample_device(v, plane.astype(np.float32), hm))
     out = v @ plane.astype(np.float32) @ hm.T
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 

@@ -5,7 +5,7 @@ string parser (`x265.h:1034-2050`, `common/param.cpp:112-1947`), rebuilt
 as a dataclass with the same layered resolution:
 ``default -> preset -> tune -> parse(name,value) -> check``.
 
-Only the subset wired into the TPU pipeline is functional today; the
+Only the subset wired into the device pipeline is functional today; the
 remaining reference options are declared so the CLI surface matches and
 validation can reject unsupported combinations loudly.
 """
@@ -53,7 +53,7 @@ class Param:
     # --- analysis ---
     rd_level: int = 2
     me_method: str = "hex"            # dia/hex/umh/star/sea/full: all
-    #                                   subsumed by the dense TPU grid
+    #                                   subsumed by the dense ME grid
     me_range: int = 16                # dense-grid half-width (4..32)
     subme: int = 2
     max_merge: int = 2
@@ -96,7 +96,7 @@ class Param:
     deblock_tc_offset: int = 0
     deblock_beta_offset: int = 0
     sao: bool = False
-    # --- parallelism (TPU shape) ---
+    # --- parallelism ---
     frame_parallelism: int = 1        # GOP/frame shards across devices
     wpp: bool = False                 # WPP entry points (substreams)
     devices: int = 1
